@@ -1,29 +1,27 @@
-"""Headline benchmark: fp64 SpMV effective bandwidth on one chip.
+"""Headline benchmark: fp64 SpMV effective bandwidth on one GPU.
 
 Prints ONE JSON line:
-  {"metric": "...", "value": N, "unit": "...", "vs_baseline": N}
+  {"metric": "...", "value": N, "unit": "...", "vs_baseline": N,
+   "device": {"platform": ..., "kind": ..., "count": N}}
 
 The config mirrors the reference's published headline (README:130-146):
 Lynx68_reordered.mtx is an RCM-reordered unstructured-FEM mesh matrix
 (6.8M rows, ~17 nnz/row); the default matrix here is `fem_mesh_2d` — a
 jittered-mesh FEM matrix in banded (RCM-like) node order with variable
 row lengths (~13-21 nnz/row), the faithful synthetic stand-in (BASELINE
-configs[2]) — at 2.07M rows / 32.3M nnz, fp64, the auto-chosen flagship
-format (the chooser picks the gather-free windowed DIA kernel here: the
-mesh lives on 25 distinct diagonals; BENCH_FORMAT=ell pins windowed
-ELLPACK for format-parity runs), best-of-repeat SpMV timing, effective
-bandwidth by the reference's ELLPACK min-bytes model (ellspmv.c:1858,
-padded ellsize * 12B + x + y) so the figure is comparable to the
-reference's 148 GB/s on 2x Xeon Gold 6130 (32 threads, AVX-512).
-Effective bandwidth above the raw HBM line means the format moves fewer
-actual bytes than ELLPACK's minimum (DIA stores no column indices).
+configs[2]) — at 2.07M rows / 32.3M nnz, fp64, the auto-chosen format
+(DIA here: the mesh lives on 25 distinct diagonals; BENCH_FORMAT=ell pins
+ELLPACK for format-parity runs), chained SpMV timing, effective bandwidth
+by the reference's ELLPACK min-bytes model (ellspmv.c:1858, padded
+ellsize * 12B + x + y) so the figure is comparable to the reference's
+148 GB/s on 2x Xeon Gold 6130 (32 threads, AVX-512). Effective bandwidth
+above the device's memory line means the format moves fewer bytes than
+ELLPACK's minimum (DIA stores no column indices).
 
 `BENCH_GEN=banded` instead benchmarks a uniform-random banded matrix
-(16 nnz/row, band 512) — the adversarial no-local-smoothness case where
-per-slot gather windows are order-statistic-tail bound (see BENCH_NOTES).
+(16 nnz/row, band 512) — no local smoothness within the band.
 
-Timing uses the chained protocol (serial-dependency loop inside one jit,
-slope of two loop lengths) so remote-dispatch overhead does not count.
+Needs a GPU: on any other platform it exits non-zero without a result.
 """
 
 from __future__ import annotations
@@ -34,10 +32,8 @@ import sys
 
 import numpy as np
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      os.path.expanduser("~/.jax_cache"))
-
 REFERENCE_GBPS = 148.0    # README:135-144, best-iteration effective GB/s
+RTOL = 1e-12              # per row, against the row's sum of |a_ij x_j|
 
 N_ROWS = int(os.environ.get("BENCH_ROWS", 2_073_600))
 GEN = os.environ.get("BENCH_GEN", "mesh")
@@ -48,22 +44,28 @@ BANDWIDTH = int(os.environ.get("BENCH_BAND", 512))
 def main() -> int:
     import jax
 
+    from ellspmv_jax.config import enable_compile_cache
+
+    dev = jax.devices()[0]
+    if dev.platform != "gpu":
+        print(f"bench.py: needs a GPU, found {dev.platform!r}",
+              file=sys.stderr)
+        return 1
+    enable_compile_cache()
     jax.config.update("jax_enable_x64", True)
 
-    from ellspmv_tpu.bench.harness import SpmvMetrics, benchmark_spmv
-    from ellspmv_tpu.formats.auto import auto_from_coo
-    from ellspmv_tpu.formats.ell import ell_from_coo
-    from ellspmv_tpu.models.generators import banded_random, fem_mesh_2d
-    from ellspmv_tpu.ops import spmv
+    from ellspmv_jax.bench.harness import SpmvMetrics, benchmark_spmv
+    from ellspmv_jax.formats.auto import auto_from_coo
+    from ellspmv_jax.formats.ell import ell_from_coo
+    from ellspmv_jax.models.generators import banded_random, fem_mesh_2d
+    from ellspmv_jax.ops import spmv
+    from ellspmv_jax.ops.reference import spmv_error
 
     if GEN == "mesh":
         coo = fem_mesh_2d(int(round(N_ROWS ** 0.5)))
     else:
         coo = banded_random(N_ROWS, NNZ_PER_ROW, BANDWIDTH, seed=0)
     n = coo.num_rows
-    # the flagship path: the framework's own format chooser (what
-    # `--format=auto` runs); BENCH_FORMAT=ell pins the windowed-ELL
-    # kernel for format-parity comparisons against the reference
     if os.environ.get("BENCH_FORMAT", "auto") == "ell":
         mat = ell_from_coo(coo, sort_rows=True, value_dtype=np.float64,
                            row_tile=256)
@@ -87,16 +89,12 @@ def main() -> int:
     res = benchmark_spmv(None, mat, x, repeat=10, warmup=2,
                          protocol="chained", metrics=metrics)
 
-    # correctness spot check against the host oracle
-    from ellspmv_tpu.ops.reference import coo_spmv_numpy
-    idx = np.random.RandomState(2).choice(n, 1000, replace=False)
-    want = coo_spmv_numpy(coo, x)
-    # chained protocol accumulates several iterations; re-run one clean step
-    y1 = np.asarray(spmv(mat, x, backend="auto"), np.float64)
-    rel = np.max(np.abs(y1[idx] - want[idx])
-                 / np.maximum(np.abs(want[idx]), 1e-300))
-    if rel > 1e-11:
-        print(f"CORRECTNESS FAILURE: max rel err {rel}", file=sys.stderr)
+    # correctness against the exact host oracle; the chained protocol
+    # accumulates several iterations, so check one clean step
+    rel = spmv_error(coo, x, spmv(mat, x))
+    if not rel <= RTOL:
+        print(f"CORRECTNESS FAILURE: max row error {rel:.3e} > {RTOL}",
+              file=sys.stderr)
         return 1
 
     gbps = res.min_gb_per_s()
@@ -105,22 +103,22 @@ def main() -> int:
         "value": round(gbps, 2),
         "unit": "GB/s",
         "vs_baseline": round(gbps / REFERENCE_GBPS, 3),
+        "device": {"platform": dev.platform, "kind": dev.device_kind,
+                   "count": len(jax.devices())},
     }))
     # dual-report: the effective (reference min-bytes model) number is the
-    # parity metric; the actual plan-traffic number is the physical
-    # roofline and can never honestly exceed ~100% of raw HBM
+    # parity metric; the stored-bytes number is the format's own traffic
     act = res.actual_gb_per_s()
-    phys = ("actual traffic unavailable (no device plan)" if act is None
-            else f"actual {act:.1f} GB/s = "
-                 f"{100 * res.physical_roofline():.1f}% of raw HBM "
-                 f"({res.actual_bytes / 1e6:.0f} MB/iter moved)")
     print(f"  config: {GEN}, {n} rows, {coo.num_nonzeros} nnz "
           f"(rowsize {rowsize}), fp64, format={chosen}, "
-          f"{res.best * 1e3:.3f} ms/iter, "
+          f"{res.best * 1e3:.6f} ms/iter, "
           f"{res.gnz_per_s():.2f} Gnz/s, {res.gflop_per_s():.2f} Gflop/s, "
-          f"effective roofline {100 * res.roofline_fraction():.1f}% of HBM "
-          f"peak by the reference's ELLPACK min-bytes model; {phys} "
-          f"(max rel err {rel:.2e})", file=sys.stderr)
+          f"effective {100 * res.roofline_fraction():.1f}% of the "
+          f"published memory bandwidth by the reference's ELLPACK "
+          f"min-bytes model; stored bytes {act:.1f} GB/s = "
+          f"{100 * res.physical_roofline():.1f}% "
+          f"({res.actual_bytes / 1e6:.0f} MB/iter; max row error "
+          f"{rel:.2e}) on {dev.device_kind}", file=sys.stderr)
     return 0
 
 

@@ -1,4 +1,4 @@
-// Native Matrix Market parser for ellspmv_tpu (ctypes ABI).
+// Native Matrix Market parser for ellspmv_jax (ctypes ABI).
 //
 // The reference parses line-at-a-time with fgets+strtod
 // (mtxfile_fread_matrix_coordinate, ellspmv.c:808-888) and reports

@@ -4,13 +4,13 @@ protocols, roofline accounting."""
 import numpy as np
 import pytest
 
-from ellspmv_tpu.bench.harness import BenchResult, SpmvMetrics, benchmark_spmv
-from ellspmv_tpu.formats.csr import csr_from_coo
-from ellspmv_tpu.formats.dia import dia_from_coo
-from ellspmv_tpu.formats.ell import ell_from_coo
-from ellspmv_tpu.formats.sell import sell_from_coo
-from ellspmv_tpu.models.generators import poisson2d
-from ellspmv_tpu.ops import spmv
+from ellspmv_jax.bench.harness import BenchResult, SpmvMetrics, benchmark_spmv
+from ellspmv_jax.formats.csr import csr_from_coo
+from ellspmv_jax.formats.dia import dia_from_coo
+from ellspmv_jax.formats.ell import ell_from_coo
+from ellspmv_jax.formats.sell import sell_from_coo
+from ellspmv_jax.models.generators import poisson2d
+from ellspmv_jax.ops import spmv
 from tests.conftest import assert_fp64_close, random_coo
 
 
@@ -58,7 +58,7 @@ def test_per_iter_protocol(rng):
                          repeat=3, warmup=2)
     assert len(res.times) == 3
     # y accumulated over warmup + timed iterations
-    from ellspmv_tpu.ops.reference import coo_spmv_numpy
+    from ellspmv_jax.ops.reference import coo_spmv_numpy
     assert_fp64_close(np.asarray(res.y), 5 * coo_spmv_numpy(coo, x))
     lines = res.iteration_lines()
     assert len(lines) == 3 and "Gnz/s" in lines[0]
@@ -79,7 +79,7 @@ def test_per_iter_first_iteration_excludes_compile(rng):
     assert res.times[0] < 50 * min(res.times[1:])
     # y semantics unchanged: exactly `repeat` accumulations (the precompile
     # dispatches are discarded)
-    from ellspmv_tpu.ops.reference import coo_spmv_numpy
+    from ellspmv_jax.ops.reference import coo_spmv_numpy
     assert_fp64_close(np.asarray(res.y), 3 * coo_spmv_numpy(coo, x))
 
 
@@ -101,193 +101,69 @@ def test_chained_requires_square(rng):
                        np.ones(40), protocol="chained")
 
 
-def test_roofline_fraction_math():
+def test_roofline_fraction_math(monkeypatch):
+    from ellspmv_jax import config
+    monkeypatch.setitem(config.HBM_PEAK_BYTES_PER_S, "test device", 1e9)
     m = SpmvMetrics(num_nonzeros=10, num_flops=20, min_bytes=1000,
                     max_bytes=2000)
+    dev = type("Dev", (), {"device_kind": "test device"})()
     r = BenchResult(times=[1e-6], metrics=m, y=None, protocol="per_iter",
-                    hbm_peak=1e9)
+                    device=dev)
     assert r.min_gb_per_s() == pytest.approx(1.0)
     assert r.roofline_fraction() == pytest.approx(1.0)
 
 
-def test_chained_traceable_pallas(monkeypatch):
-    """Chained protocol with spmv_fn=None routes through traceable_spmv;
-    with interpret-mode pallas forced, the loop must use the kernel without
-    embedding the matrix as constants (DevicePlan rides as a jit arg)."""
-    monkeypatch.setenv("ELLSPMV_TPU_PALLAS_INTERPRET", "1")
-    from ellspmv_tpu.models.generators import banded_random
-    from ellspmv_tpu.ops.dispatch import traceable_spmv
-    coo = banded_random(640, 5, 40, seed=2)
-    ell = ell_from_coo(coo, sort_rows=True, value_dtype=np.float64)
-    operand, fn = traceable_spmv(ell)
-    from ellspmv_tpu.ops.ell_pallas import DevicePlan
-    assert isinstance(operand[0], DevicePlan)
-    x = np.random.RandomState(3).rand(640)
-    res = benchmark_spmv(None, ell, x, repeat=3, warmup=1,
-                         protocol="chained")
-    assert res.best > 0
-    from ellspmv_tpu.ops.reference import ell_spmv_numpy
-    # the returned y comes from the highest-iteration chained run
-    assert np.isfinite(np.asarray(res.y)).all()
-
-
-def test_traceable_spmv_dd_pair_form(monkeypatch):
-    """fp64 matrices with a dd Pallas plan expose the pair-carried form
-    (the chained protocol's zero-split/merge fast path); f32 matrices and
-    split-diagonal ones don't."""
-    monkeypatch.setenv("ELLSPMV_TPU_PALLAS_INTERPRET", "1")
-    from ellspmv_tpu.models.generators import banded_random
-    from ellspmv_tpu.ops.dd_vec import DDVec, dd_from_f64, dd_to_f64
-    from ellspmv_tpu.ops.dispatch import traceable_spmv_dd
-    from ellspmv_tpu.ops.reference import coo_spmv_numpy
-
-    coo = banded_random(640, 5, 40, seed=2)
-    x = np.random.RandomState(3).rand(640)
-    want = coo_spmv_numpy(coo, x)
-
-    ell = ell_from_coo(coo, sort_rows=True, value_dtype=np.float64)
-    pair = traceable_spmv_dd(ell)
-    assert pair is not None
-    op, fn = pair
-    got = np.asarray(dd_to_f64(fn(op, dd_from_f64(np.asarray(x)))))
-    # CPU interpret mode: XLA fuses the interpret kernel's internals and
-    # rewrites the error-free transforms (CLAUDE.md) — ~f32 accuracy here;
-    # hardware keeps the dd contract
-    assert np.allclose(got, want, rtol=1e-4)
-    # y accumulates in dd
-    got2 = np.asarray(dd_to_f64(fn(op, dd_from_f64(np.asarray(x)),
-                                   dd_from_f64(np.asarray(want)))))
-    assert np.allclose(got2, 2 * want, rtol=1e-4)
-
-    assert traceable_spmv_dd(
-        ell_from_coo(coo, value_dtype=np.float32)) is None
-
-    # split diagonal: epilogue runs in dd on the pair
-    ellsd = ell_from_coo(coo, separate_diagonal=True,
-                         value_dtype=np.float64)
-    opsd, fnsd = traceable_spmv_dd(ellsd)
-    gotsd = np.asarray(dd_to_f64(fnsd(opsd, dd_from_f64(np.asarray(x)))))
-    assert np.allclose(gotsd, want, rtol=1e-4)
-
-    # CSR routes through the trivial single-bucket SELL repack
-    from ellspmv_tpu.formats.csr import csr_from_coo
-    csr = csr_from_coo(coo, sort_rows=True, value_dtype=np.float64)
-    paircsr = traceable_spmv_dd(csr)
-    if paircsr is not None:
-        opc, fnc = paircsr
-        gotc = np.asarray(dd_to_f64(fnc(opc, dd_from_f64(np.asarray(x)))))
-        assert np.allclose(gotc, want, rtol=1e-4)
-
-    d = dia_from_coo(poisson2d(16), value_dtype=np.float64)
-    pair = traceable_spmv_dd(d)
-    assert pair is not None
-    opd, fnd = pair
-    xd = np.random.RandomState(4).rand(256)
-    wantd = coo_spmv_numpy(poisson2d(16), xd)
-    gotd = np.asarray(dd_to_f64(fnd(opd, dd_from_f64(np.asarray(xd)))))
-    assert np.allclose(gotd, wantd, rtol=1e-4)
-
-
-def test_chained_dd_carry(monkeypatch):
-    """The chained protocol carries dd pairs for f64 Pallas-planned
-    matrices: the timed loop never converts to f64 between iterations."""
-    monkeypatch.setenv("ELLSPMV_TPU_PALLAS_INTERPRET", "1")
+def test_chained_passes_matrix_as_argument(rng):
+    """Chained protocol with spmv_fn=None jits the library dispatch with
+    the matrix as a jit ARGUMENT (every format is a pytree), so the loop
+    result matches the per-iteration oracle."""
     coo = poisson2d(16)
     ell = ell_from_coo(coo, sort_rows=True, value_dtype=np.float64)
     res = benchmark_spmv(None, ell, np.ones(256), repeat=3, warmup=1,
                          protocol="chained")
-    assert res.best > 0
+    assert res.best > 0 and res.span_iters >= 8
     y = np.asarray(res.y)
     assert y.dtype == np.float64 and np.isfinite(y).all()
 
 
-def test_fma_probe_false_on_cpu():
-    from ellspmv_tpu.ops.ell_pallas import fma_contraction_available
-    assert fma_contraction_available() is False
+def test_actual_traffic_accounting():
+    """Stored-bytes accounting: format arrays + x once + y read/write.
+    DIA stores no indices, so it moves fewer bytes than ELL on a stencil."""
+    from ellspmv_jax.bench.traffic import estimate_actual_bytes
+
+    coo = poisson2d(32)
+    n = coo.num_rows
+    ell = ell_from_coo(coo, value_dtype=np.float64)
+    want = ell.colidx.nbytes + ell.values.nbytes + 3 * n * 8
+    assert estimate_actual_bytes(ell) == want
+    dia = dia_from_coo(coo, value_dtype=np.float64)
+    assert estimate_actual_bytes(dia) == dia.data.nbytes + 3 * n * 8
+    assert estimate_actual_bytes(dia) < estimate_actual_bytes(ell)
+    res = benchmark_spmv(None, ell, np.ones(n), repeat=2, warmup=1,
+                         protocol="chained")
+    assert res.actual_bytes == want and res.actual_gb_per_s() > 0
 
 
-def test_dispatch_warning():
-    """per_iter timings below 3x the dispatch round trip carry a warning
-    pointing at --protocol=chained (remote-TPU footgun, VERDICT r1)."""
-    from ellspmv_tpu.bench.harness import _dispatch_warning
-    assert _dispatch_warning(0.001, 0.03) is not None
-    assert "chained" in _dispatch_warning(0.001, 0.03)
-    assert _dispatch_warning(0.1, 0.03) is None
+def test_copy_bandwidth_refuses_cpu():
+    """The copy measurement needs a GPU: on the CPU it raises instead of
+    reporting a host number (or a nominal peak) as a device rate."""
+    from ellspmv_jax.bench.stream import measure_copy_bandwidth
+    with pytest.raises(RuntimeError, match="needs a GPU"):
+        measure_copy_bandwidth(size_mb=1, iters=2)
 
-def test_actual_traffic_accounting(monkeypatch):
-    """Physical-traffic dual reporting (VERDICT r2 item 2): planned kernels
-    report actual bytes/iter from the device plan; the physical roofline
-    can never exceed the effective one's >100% format-economy readings
-    because it counts the bytes the kernel genuinely moves."""
-    monkeypatch.setenv("ELLSPMV_TPU_PALLAS_INTERPRET", "1")
-    from ellspmv_tpu.bench.traffic import estimate_actual_bytes
-    from ellspmv_tpu.models.generators import banded_random, poisson2d
 
-    coo = banded_random(640, 5, 40, seed=2)
-    ell = ell_from_coo(coo, sort_rows=True, value_dtype=np.float64)
-    assert estimate_actual_bytes(ell) is None   # no plan built yet
-    res = benchmark_spmv(None, ell, np.random.RandomState(3).rand(640),
-                         repeat=2, warmup=1, protocol="chained")
-    assert res.actual_bytes is not None
-    # dd f32 pairs + narrow lcol: more than the bare nnz payload, less
-    # than 10x the min-bytes model
-    assert 0 < res.actual_bytes < 10 * res.metrics.min_bytes
-    assert res.actual_gb_per_s() > 0
-    assert res.physical_roofline() > 0
-
-    # DIA: stores no column indices — actual bytes well under the
-    # ELLPACK min-bytes model at the same nnz
-    pcoo = poisson2d(32)
-    dia = dia_from_coo(pcoo, value_dtype=np.float64)
-    res2 = benchmark_spmv(None, dia, np.ones(1024), repeat=2, warmup=1,
-                          protocol="chained")
-    assert res2.actual_bytes is not None and res2.actual_bytes > 0
-
-def test_measure_peak_bandwidth_gate(monkeypatch):
-    """The hardened peak measurement (median-of-5 slopes + plausibility
-    gate, bench/calibrate.py pattern): on the CPU backend any reading far
-    outside the device table's nominal peak degrades to nominal instead of
-    being reported (the 1e8-GB/s cached-rate hazard class)."""
-    import io
-    from ellspmv_tpu.bench.stream import measure_peak_bandwidth
-    from ellspmv_tpu.config import hbm_peak_bytes_per_s
-
-    log = io.StringIO()
-    bw = measure_peak_bandwidth(size_mb=12, iters=8, log=log)
-    nominal = hbm_peak_bytes_per_s()
-    assert 0.05 * nominal <= bw <= 1.2 * nominal
-
-def test_actual_traffic_stream_and_sell(monkeypatch, rng):
-    """Traffic accounting covers the stream and SELL formats. The stream
-    count is EXACT plan arithmetic (VERDICT r3 item 4): every router pass
-    and sum-window DMA enumerated from the plan shapes — and only exists
-    when every level is statically routed (sort traffic is data-dependent
-    and not modeled)."""
-    monkeypatch.setenv("ELLSPMV_TPU_PALLAS_INTERPRET", "1")
-    from ellspmv_tpu.bench.traffic import estimate_actual_bytes
-    from ellspmv_tpu.formats.sell import sell_from_coo
-    from ellspmv_tpu.formats.stream import stream_from_coo
-    from ellspmv_tpu.models.generators import power_law
+@pytest.mark.parametrize("fmt", ["csr", "sell", "hybrid"])
+def test_actual_traffic_other_formats(fmt):
+    """Every format has a stored-bytes count at least as large as its
+    values array plus x and y."""
+    from ellspmv_jax.bench.traffic import estimate_actual_bytes
+    from ellspmv_jax.formats.hybrid import hybrid_from_coo
+    from ellspmv_jax.models.generators import power_law
 
     coo = power_law(2000, 5, seed=4)
-    strm = stream_from_coo(coo, value_dtype=np.float64)
-    b = estimate_actual_bytes(strm)
-    if all(lv.perm is not None for lv in strm.ddsum.levels) \
-            and strm.ddsum.final_perm is not None:
-        # fully routed: count present, and at least one full stream pass
-        assert b is not None and b > coo.num_nonzeros * 8
-    else:
-        assert b is None
-
-    # sort-path plans carry no physical column rather than an estimate
-    monkeypatch.setenv("ELLSPMV_TPU_NO_PERMUTE", "1")
-    strm2 = stream_from_coo(coo, value_dtype=np.float64)
-    assert estimate_actual_bytes(strm2) is None
-    monkeypatch.delenv("ELLSPMV_TPU_NO_PERMUTE")
-
-    sell = sell_from_coo(coo, sort_rows=True, length_sort=True,
-                         value_dtype=np.float64)
-    bs = estimate_actual_bytes(sell)
-    # buckets without plans return None (XLA gather traffic is
-    # data-dependent); with plans the count is positive
-    assert bs is None or bs > 0
+    conv = {"csr": csr_from_coo,
+            "sell": lambda c: sell_from_coo(c, slice_rows=128),
+            "hybrid": lambda c: hybrid_from_coo(c, slice_rows=128)}[fmt]
+    mat = conv(coo)
+    assert estimate_actual_bytes(mat) >= \
+        coo.num_nonzeros * 8 + 3 * coo.num_rows * 8

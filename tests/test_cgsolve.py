@@ -5,9 +5,9 @@ import io
 import numpy as np
 import pytest
 
-from ellspmv_tpu.cli import cgsolve
-from ellspmv_tpu.io.mtx import read_vector, write_matrix, write_vector
-from ellspmv_tpu.models.generators import poisson2d
+from ellspmv_jax.cli import cgsolve
+from ellspmv_jax.io.mtx import read_vector, write_matrix, write_vector
+from ellspmv_jax.models.generators import poisson2d
 
 
 @pytest.fixture

@@ -8,8 +8,8 @@ import sys
 import numpy as np
 import pytest
 
-from ellspmv_tpu.cli import csrspmv, ellspmv
-from ellspmv_tpu.io.mtx import read_vector, write_matrix, write_vector
+from ellspmv_jax.cli import csrspmv, ellspmv
+from ellspmv_jax.io.mtx import read_vector, write_matrix, write_vector
 from tests.conftest import random_coo
 
 MTX = """%%MatrixMarket matrix coordinate real general
@@ -66,7 +66,7 @@ def test_ell_equals_csr_stdout(rng, tmp_path, capsys):
     [], ["--separate-diagonal"], ["--sort-rows"],
     ["--separate-diagonal", "--sort-rows"],
     ["--repeat=3", "--warmup=2"], ["--precision=float32"],
-    ["--index-width=64"], ["--backend=xla"],
+    ["--index-width=64"], ["--format=auto"],
 ])
 def test_flag_combinations(flags, mtx_file, capsys):
     rc, out, err = run_cli(ellspmv.main, flags + [mtx_file], capsys)
@@ -273,9 +273,9 @@ def test_bfloat16_precision(mtx_file, capsys):
     np.testing.assert_allclose(y, [3, 1, 3, 6], rtol=0.02)  # bf16 ~2-3 digits
 
 
-@pytest.mark.parametrize("fmt", ["dia", "sell", "hybrid", "stream"])
+@pytest.mark.parametrize("fmt", ["dia", "sell", "hybrid"])
 def test_format_flag(fmt, tmp_path, rng, capsys):
-    """--format selects the TPU-native formats; stdout y must match the
+    """--format selects the other formats; stdout y must match the
     default ELL path's golden result."""
     if fmt == "dia":
         # DIA needs few distinct diagonals: a tridiagonal matrix
@@ -285,7 +285,7 @@ def test_format_flag(fmt, tmp_path, rng, capsys):
         cols = np.concatenate([np.arange(n), np.arange(1, n),
                                np.arange(n - 1)]).astype(np.int32)
         vals = rng.rand(len(rows)) + 0.5
-        from ellspmv_tpu.formats.coo import CooMatrix
+        from ellspmv_jax.formats.coo import CooMatrix
         coo = CooMatrix(n, n, rows, cols, vals)
     else:
         coo = random_coo(rng, 40, 40, 220)
@@ -324,9 +324,9 @@ def test_format_auto_cli(tmp_path, rng, capsys):
 def test_format_auto_honors_sort_rows(rng):
     """--format=auto passes the user's --sort-rows state through instead
     of hardcoding sorted rows (advisor finding, round 1)."""
-    from ellspmv_tpu.formats.auto import auto_from_coo
-    from ellspmv_tpu.formats.ell import EllMatrix, ell_from_coo
-    from ellspmv_tpu.models.generators import banded_random
+    from ellspmv_jax.formats.auto import auto_from_coo
+    from ellspmv_jax.formats.ell import EllMatrix, ell_from_coo
+    from ellspmv_jax.models.generators import banded_random
 
     coo = banded_random(2000, 8, 64, seed=3)
     unsorted = auto_from_coo(coo, sort_rows=False, value_dtype=np.float64,
@@ -337,37 +337,11 @@ def test_format_auto_honors_sort_rows(rng):
                                   np.asarray(ref.colidx))
 
 
-def test_format_stream_sharded_cli(tmp_path, rng, capsys):
-    """--format=stream --devices=N runs the row-sharded sort-based
-    pipeline under shard_map."""
-    coo = random_coo(rng, 64, 64, 400)
-    p = str(tmp_path / "m.mtx")
-    write_matrix(p, coo)
-    _, out_ref, _ = run_cli(ellspmv.main, [p], capsys)
-    rc, out_s, err = run_cli(
-        ellspmv.main, ["--format=stream", "--devices=4", p], capsys)
-    assert rc == 0, err
-    y_ref = read_vector(io.BytesIO(out_ref.encode()))
-    y_s = read_vector(io.BytesIO(out_s.encode()))
-    np.testing.assert_allclose(y_s, y_ref, rtol=1e-5, atol=1e-5)
-
-
-def test_format_stream_sharded_workload_report(tmp_path, rng, capsys):
-    coo = random_coo(rng, 64, 64, 300)
-    p = str(tmp_path / "m.mtx")
-    write_matrix(p, coo)
-    rc, _, err = run_cli(
-        ellspmv.main, ["--format=stream", "--devices=4", "-q", "-v", "-v",
-                       "--papi-event-per-thread", p], capsys)
-    assert rc == 0, err
-    assert "device" in err and "nonzeros" in err
-
-
 def test_conversion_memory_error_clean(mtx_file, capsys, monkeypatch):
     """A padding-blowup OOM during conversion reports cleanly with a
     format hint, like the reference's malloc failure paths
     (ellspmv.c:1418-1424)."""
-    from ellspmv_tpu.cli import common
+    from ellspmv_jax.cli import common
 
     def boom(*a, **k):
         raise MemoryError("Unable to allocate 373. GiB")
@@ -375,7 +349,7 @@ def test_conversion_memory_error_clean(mtx_file, capsys, monkeypatch):
     monkeypatch.setattr(common, "_convert", boom)
     rc, _, err = run_cli(ellspmv.main, [mtx_file], capsys)
     assert rc == 1
-    assert "conversion failed" in err and "--format=stream" in err
+    assert "conversion failed" in err and "--format=auto" in err
 
 
 def test_chained_protocol_sharded(tmp_path, rng, capsys):

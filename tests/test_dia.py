@@ -2,9 +2,9 @@
 
 import numpy as np
 
-from ellspmv_tpu.formats.dia import dia_from_coo, dia_spmv
-from ellspmv_tpu.models.generators import poisson2d
-from ellspmv_tpu.ops.reference import coo_spmv_numpy
+from ellspmv_jax.formats.dia import dia_from_coo, dia_spmv
+from ellspmv_jax.models.generators import poisson2d
+from ellspmv_jax.ops.reference import coo_spmv_numpy
 from tests.conftest import assert_fp64_close, random_coo
 
 

@@ -4,10 +4,10 @@ expansion, diagonal split, row sorting, index dtype selection."""
 import numpy as np
 import pytest
 
-from ellspmv_tpu.config import select_index_dtype
-from ellspmv_tpu.formats.csr import csr_from_coo
-from ellspmv_tpu.formats.ell import ell_from_coo
-from ellspmv_tpu.ops.reference import (coo_spmv_numpy, csr_spmv_numpy,
+from ellspmv_jax.config import select_index_dtype
+from ellspmv_jax.formats.csr import csr_from_coo
+from ellspmv_jax.formats.ell import ell_from_coo
+from ellspmv_jax.ops.reference import (coo_spmv_numpy, csr_spmv_numpy,
                                        ell_spmv_numpy)
 from tests.conftest import random_coo
 
@@ -136,7 +136,7 @@ def test_index_dtype_selection():
 
 
 def test_empty_matrix():
-    from ellspmv_tpu.formats.coo import CooMatrix
+    from ellspmv_jax.formats.coo import CooMatrix
     coo = CooMatrix(4, 4, np.zeros(0, np.int32), np.zeros(0, np.int32),
                     np.zeros(0))
     ell = ell_from_coo(coo)
@@ -152,7 +152,7 @@ def test_fem_mesh_2d_is_spd_usable():
     """fem_mesh_2d must be numerically symmetric (one value per unordered
     pair) with a dominant diagonal, so CG demos on it are mathematically
     valid."""
-    from ellspmv_tpu.models.generators import fem_mesh_2d
+    from ellspmv_jax.models.generators import fem_mesh_2d
     coo = fem_mesh_2d(12, 12, extras=3, seed=4)
     a = np.zeros((coo.num_rows, coo.num_columns))
     a[coo.rowidx, coo.colidx] = coo.values

@@ -1,11 +1,10 @@
 """Hub-column hybrid tests (power-law matrices, configs[3])."""
 
 import numpy as np
-import pytest
 
-from ellspmv_tpu.formats.hybrid import hybrid_from_coo, hybrid_spmv
-from ellspmv_tpu.models.generators import power_law
-from ellspmv_tpu.ops.reference import coo_spmv_numpy
+from ellspmv_jax.formats.hybrid import hybrid_from_coo, hybrid_spmv
+from ellspmv_jax.models.generators import power_law
+from ellspmv_jax.ops.reference import coo_spmv_numpy
 from tests.conftest import assert_fp64_close, random_coo
 
 
@@ -29,42 +28,21 @@ def test_hub_disabled_when_uniform(rng):
                       coo_spmv_numpy(coo, x))
 
 
-def test_hub_planable(rng):
-    """The hub part's columns all lie in [0, H): its SELL buckets must be
-    plan-able by the windowed kernel (that's the point of the split)."""
-    from ellspmv_tpu.ops import plan as pm
-    coo = power_law(20000, 8, seed=2)
-    hm = hybrid_from_coo(coo, hub_width=1024, slice_rows=1024)
-    assert hm.hub is not None
-    planable = [pm.best_plan(b, value_dtype=np.float64) is not None
-                for b in hm.hub.buckets]
-    assert any(planable)
-
-
-def test_traceable_hybrid(rng, monkeypatch):
-    """Traceability of the hybrid (matrix data as jit arguments).
-
-    Tolerance note: under CPU interpret mode INSIDE a jit, XLA fuses the
-    interpret-kernel internals and may rewrite the dd error-free
-    transforms (degrades a few elements to ~f32 — see BENCH_NOTES);
-    hardware Mosaic kernels are opaque custom calls and keep full dd
-    accuracy (covered by the bench oracle check and test_pallas)."""
-    monkeypatch.setenv("ELLSPMV_TPU_PALLAS_INTERPRET", "1")
+def test_traceable_hybrid(rng):
+    """The hybrid is a pytree: spmv traces inside an outer jit with the
+    matrix data passed as jit arguments, in exact fp64."""
     import jax
-    from ellspmv_tpu.ops.dispatch import traceable_spmv
+    from ellspmv_jax.ops import spmv
     coo = power_law(1200, 4, seed=3)
     hm = hybrid_from_coo(coo, hub_width=256, slice_rows=128, tail_cap=8,
                          value_dtype=np.float64).device_put()
-    op, fn = traceable_spmv(hm)
     x = rng.randn(1200)
-    got = np.asarray(jax.jit(lambda o, v: fn(o, v))(op, np.asarray(x)))
-    want = coo_spmv_numpy(coo, x)
-    np.testing.assert_allclose(got, want, rtol=2e-6,
-                               atol=2e-6 * np.abs(want).max())
+    got = np.asarray(jax.jit(spmv)(hm, np.asarray(x)))
+    assert_fp64_close(got, coo_spmv_numpy(coo, x))
 
 
 def test_metrics(rng):
-    from ellspmv_tpu.bench.harness import SpmvMetrics
+    from ellspmv_jax.bench.harness import SpmvMetrics
     coo = power_law(2000, 6, seed=4)
     hm = hybrid_from_coo(coo, hub_width=256, slice_rows=256)
     m = SpmvMetrics.for_matrix(hm)

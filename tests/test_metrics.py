@@ -4,7 +4,7 @@ import io
 
 import pytest
 
-from ellspmv_tpu.bench import metrics as M
+from ellspmv_jax.bench import metrics as M
 
 
 def test_parse_formula():
@@ -45,16 +45,16 @@ T [Gnz/s] = nnz / time / 1e9
 
 
 def test_example_file_end_to_end(tmp_path, capsys):
-    from ellspmv_tpu.cli import ellspmv
+    from ellspmv_jax.cli import ellspmv
     mtx = tmp_path / "m.mtx"
     mtx.write_text("%%MatrixMarket matrix coordinate real general\n"
                    "2 2 2\n1 1 2\n2 2 3\n")
-    rc = ellspmv.main(["-q", "--papi-event-file=examples/tpu_membw.metrics",
+    rc = ellspmv.main(["-q", "--papi-event-file=examples/membw.metrics",
                        str(mtx)])
     assert rc == 0
     err = capsys.readouterr().err
     assert "Throughput" in err and "Roofline" in err
-    rc = ellspmv.main(["-q", "--papi-event-file=examples/tpu_membw.metrics",
+    rc = ellspmv.main(["-q", "--papi-event-file=examples/membw.metrics",
                        "--papi-event-format=csv", str(mtx)])
     assert rc == 0
     err = capsys.readouterr().err
@@ -62,7 +62,7 @@ def test_example_file_end_to_end(tmp_path, capsys):
 
 
 def test_bad_metrics_file(tmp_path, capsys):
-    from ellspmv_tpu.cli import ellspmv
+    from ellspmv_jax.cli import ellspmv
     mtx = tmp_path / "m.mtx"
     mtx.write_text("%%MatrixMarket matrix coordinate real general\n"
                    "1 1 1\n1 1 1\n")

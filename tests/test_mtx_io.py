@@ -7,7 +7,7 @@ import io
 import numpy as np
 import pytest
 
-from ellspmv_tpu.io.mtx import (MtxFormatError, read_header, read_matrix,
+from ellspmv_jax.io.mtx import (MtxFormatError, read_header, read_matrix,
                                 read_vector, write_matrix, write_vector)
 from tests.conftest import random_coo
 
@@ -158,7 +158,7 @@ def test_strict_value_parsing():
 def test_native_writer_roundtrip(rng, tmp_path):
     """Native bulk writer (native/mtxwrite.cc) round-trips exactly against
     both readers (shortest-round-trip float formatting)."""
-    from ellspmv_tpu.io import native
+    from ellspmv_jax.io import native
     if not native.available():
         pytest.skip("native library unavailable")
     n = 2000
@@ -166,7 +166,7 @@ def test_native_writer_roundtrip(rng, tmp_path):
     rows = rng.randint(0, n, nnz)
     cols = rng.randint(0, n, nnz)
     vals = rng.randn(nnz) * 10.0 ** rng.randint(-30, 30, nnz)
-    from ellspmv_tpu.formats.coo import CooMatrix
+    from ellspmv_jax.formats.coo import CooMatrix
     coo = CooMatrix(n, n, rows.astype(np.int64), cols.astype(np.int64),
                     vals)
     p = str(tmp_path / "big.mtx")

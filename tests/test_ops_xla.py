@@ -4,12 +4,12 @@ oracles, in exact fp64 on the CPU backend (1e-14 north-star tolerance)."""
 import numpy as np
 import pytest
 
-from ellspmv_tpu.formats.csr import csr_from_coo
-from ellspmv_tpu.formats.ell import ell_from_coo
-from ellspmv_tpu.ops import spmv
-from ellspmv_tpu.ops.csr_xla import csr_spmv_xla
-from ellspmv_tpu.ops.ell_xla import ell_spmv_xla
-from ellspmv_tpu.ops.reference import coo_spmv_numpy
+from ellspmv_jax.formats.csr import csr_from_coo
+from ellspmv_jax.formats.ell import ell_from_coo
+from ellspmv_jax.ops import spmv
+from ellspmv_jax.ops.csr_xla import csr_spmv_xla
+from ellspmv_jax.ops.ell_xla import ell_spmv_xla
+from ellspmv_jax.ops.reference import coo_spmv_numpy
 from tests.conftest import assert_fp64_close, random_coo
 
 

@@ -5,10 +5,10 @@ import jax
 import numpy as np
 import pytest
 
-from ellspmv_tpu.formats.csr import csr_from_coo
-from ellspmv_tpu.formats.ell import ell_from_coo
-from ellspmv_tpu.ops.reference import coo_spmv_numpy
-from ellspmv_tpu.parallel.spmv import shard_matrix, sharded_spmv_fn
+from ellspmv_jax.formats.csr import csr_from_coo
+from ellspmv_jax.formats.ell import ell_from_coo
+from ellspmv_jax.ops.reference import coo_spmv_numpy
+from ellspmv_jax.parallel.spmv import shard_matrix, sharded_spmv_fn
 from tests.conftest import assert_fp64_close, random_coo
 
 NDEV = len(jax.devices())
@@ -92,226 +92,16 @@ def test_accumulate_chain(rng):
     assert_fp64_close(y2, 2 * coo_spmv_numpy(coo, x))
 
 
-def test_sharded_pallas_interpret(rng, monkeypatch):
-    """Sharded Pallas kernel under shard_map, interpret mode on the CPU
-    mesh: must match the XLA sharded path and the oracle."""
-    monkeypatch.setenv("ELLSPMV_TPU_SHARDED_PALLAS", "1")
-    from ellspmv_tpu.models.generators import banded_random
-    coo = banded_random(1024, 6, 64, seed=9)
-    ell = ell_from_coo(coo, sort_rows=True, value_dtype=np.float64)
-    sm = shard_matrix(ell, 4)
-    from ellspmv_tpu.parallel.spmv import sharded_pallas_spmv_fn
-    fn = sharded_pallas_spmv_fn(sm)
-    assert fn is not None
-    x = rng.randn(1024)
-    y0 = rng.randn(1024)
-    got = np.asarray(fn(sm, x, y0))
-    assert_fp64_close(got, coo_spmv_numpy(coo, x, y0))
-
-
-def test_physical_x_layout(rng):
-    """x_layout='physical': column indices remapped into the padded block
-    layout; SpMV still matches the oracle through the logical API."""
-    n = 96
-    coo = random_coo(rng, n, n, 500, with_dups=True)
-    ell = ell_from_coo(coo)
-    sm = shard_matrix(ell, 4, x_layout="physical")
-    assert sm.x_physical and sm.x_block == sm.block
-    fn = sharded_spmv_fn(sm)
-    x = rng.randn(n)
-    y0 = rng.randn(n)
-    got = np.asarray(fn(sm, x, y0))
-    assert_fp64_close(got, coo_spmv_numpy(coo, x, y0))
-
-
-def test_physical_x_layout_rejects(rng):
-    rect = ell_from_coo(random_coo(rng, 40, 52, 100))
-    with pytest.raises(ValueError):
-        shard_matrix(rect, 4, x_layout="physical")
-    sq = ell_from_coo(random_coo(rng, 64, 64, 200),
-                      separate_diagonal=True)
-    with pytest.raises(ValueError):
-        shard_matrix(sq, 4, x_layout="physical")
-
-
-def test_cg_dd_sharded(rng):
-    """Distributed dd CG: whole solve inside one shard_map over the mesh
-    (interpret-mode Pallas on CPU; XLA may rewrite the kernels' error-free
-    transforms there, so the tolerance is f32-level — hardware keeps dd)."""
-    from ellspmv_tpu.formats.coo import CooMatrix
-    from ellspmv_tpu.models.generators import poisson2d
-    from ellspmv_tpu.parallel.solver import cg_dd_sharded
-
-    coo = poisson2d(12)                      # SPD, 144 rows
-    n = coo.num_rows
-    ell = ell_from_coo(coo, sort_rows=True, value_dtype=np.float64)
-    sm = shard_matrix(ell, 4, x_layout="physical")
-    b = rng.randn(n)
-    res = cg_dd_sharded(sm, b, tol=1e-10, maxiter=400)
-    x = np.asarray(res.x)
-    want = np.linalg.solve(coo.to_dense(), b)
-    assert int(res.iterations) > 0
-    np.testing.assert_allclose(x, want, rtol=2e-5, atol=2e-5)
-
-
-def test_sharded_stream_power_law(rng):
-    """Row-sharded stream SpMV (power-law across the mesh): per-device
-    sort-based pipelines under shard_map, x allgathered, SPMD-uniform
-    plan shapes. CPU interpret-mode dd degrades to ~f32 (known caveat)."""
-    from ellspmv_tpu.models.generators import power_law
-    from ellspmv_tpu.ops.reference import coo_spmv_numpy
-    from ellspmv_tpu.parallel.stream import (shard_stream,
-                                             sharded_stream_spmv_fn)
-
-    coo = power_law(2500, 6, seed=3)
-    x = rng.rand(coo.num_columns)
-    want = coo_spmv_numpy(coo, x)
-    scale = max(np.max(np.abs(want)), 1.0)
-    for part in ("rows", "nonzeros"):
-        ss = shard_stream(coo, 8, partition=part, value_dtype=np.float64)
-        fn = sharded_stream_spmv_fn(ss)
-        got = np.asarray(fn(ss, x), np.float64)
-        assert np.max(np.abs(got - want)) / scale < 5e-5
-    y0 = rng.randn(coo.num_rows)
-    got2 = np.asarray(fn(ss, x, y0), np.float64)
-    assert np.max(np.abs(got2 - (want + y0))) / scale < 5e-5
-
-
-def test_sharded_stream_xla_backend_strict(rng):
-    """The strict-f64 XLA backend (gather-product + segment-sum under the
-    same shard_map) certifies exact sharded stream numerics at 1e-12 on
-    any backend — including with a split diagonal and a y accumulator."""
-    from ellspmv_tpu.models.generators import power_law
-    from ellspmv_tpu.ops.reference import coo_spmv_numpy
-    from ellspmv_tpu.parallel.stream import (shard_stream,
-                                             sharded_stream_spmv_fn)
-
-    coo = power_law(1800, 6, seed=5)
-    x = rng.rand(coo.num_columns)
-    want = coo_spmv_numpy(coo, x)
-    scale = max(np.max(np.abs(want)), 1.0)
-    ss = shard_stream(coo, 8, value_dtype=np.float64)
-    fn = sharded_stream_spmv_fn(ss, backend="xla")
-    got = np.asarray(fn(ss, x), np.float64)
-    np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12 * scale)
-    y0 = rng.randn(coo.num_rows)
-    got2 = np.asarray(fn(ss, x, y0), np.float64)
-    np.testing.assert_allclose(got2, want + y0, rtol=1e-12,
-                               atol=1e-12 * scale)
-    ssd = shard_stream(coo, 8, value_dtype=np.float64,
-                       separate_diagonal=True)
-    fnd = sharded_stream_spmv_fn(ssd, backend="xla")
-    gotd = np.asarray(fnd(ssd, x), np.float64)
-    np.testing.assert_allclose(gotd, want, rtol=1e-12, atol=1e-12 * scale)
-
-
-def test_sharded_stream_f32_and_explicit_rows(rng):
-    from ellspmv_tpu.models.generators import power_law
-    from ellspmv_tpu.ops.reference import coo_spmv_numpy
-    from ellspmv_tpu.parallel.stream import (shard_stream,
-                                             sharded_stream_spmv_fn)
-
-    coo = power_law(1600, 5, seed=5)
-    n = coo.num_rows
-    counts = [n // 8] * 7
-    counts.append(n - sum(counts))
-    ss = shard_stream(coo, 8, rows_per_device=counts,
-                      value_dtype=np.float32)
-    fn = sharded_stream_spmv_fn(ss)
-    x = rng.rand(coo.num_columns)
-    got = np.asarray(fn(ss, x), np.float64)
-    want = coo_spmv_numpy(coo, x)
-    scale = max(np.max(np.abs(want)), 1.0)
-    assert np.max(np.abs(got - want)) / scale < 2e-4
-
-
-def test_sharded_stream_edge_cases(rng):
-    """Tiny matrices (fewer rows than devices), empty matrices, a row
-    that splits, and all-entries-on-one-device skew."""
-    from ellspmv_tpu.formats.coo import CooMatrix
-    from ellspmv_tpu.ops.reference import coo_spmv_numpy
-    from ellspmv_tpu.parallel.stream import (shard_stream,
-                                             sharded_stream_spmv_fn)
-
-    cases = [
-        CooMatrix(5, 9, np.array([0, 1, 4, 4], np.int32),
-                  np.array([8, 0, 3, 3], np.int32),
-                  np.array([1.0, 2.0, 3.0, 4.0])),
-        CooMatrix(6, 6, np.zeros(0, np.int32), np.zeros(0, np.int32),
-                  np.zeros(0)),
-        CooMatrix(40, 50,
-                  np.concatenate([np.full(700, 2),
-                                  rng.randint(0, 40, 300)]).astype(np.int32),
-                  rng.randint(0, 50, 1000).astype(np.int32),
-                  rng.randn(1000)),
-        CooMatrix(96, 96, rng.randint(90, 96, 500).astype(np.int32),
-                  rng.randint(0, 96, 500).astype(np.int32),
-                  rng.randn(500)),
-    ]
-    for coo in cases:
-        for D in (3, 8):
-            ss = shard_stream(coo, D, value_dtype=np.float64)
-            fn = sharded_stream_spmv_fn(ss)
-            x = rng.rand(coo.num_columns)
-            got = np.asarray(fn(ss, x), np.float64)
-            want = coo_spmv_numpy(coo.expand_symmetry(), x)
-            scale = max(np.max(np.abs(want), initial=0.0), 1.0)
-            assert np.max(np.abs(got - want), initial=0.0) / scale < 5e-5
-
-
-def test_sharded_stream_separate_diagonal(rng):
-    """--separate-diagonal on the sharded stream: the diagonal splits into
-    per-device dense epilogues (ellgemvsd's y[i] += ad[i]*x[i],
-    ellspmv.c:1177) instead of being silently re-inlined."""
-    from ellspmv_tpu.models.generators import power_law
-    from ellspmv_tpu.ops.reference import coo_spmv_numpy
-    from ellspmv_tpu.parallel.stream import (shard_stream,
-                                             sharded_stream_spmv_fn)
-
-    coo = power_law(900, 5, seed=7)
-    x = rng.rand(coo.num_columns)
-    y0 = rng.randn(coo.num_rows)
-    want = coo_spmv_numpy(coo, x, y0)
-    ss = shard_stream(coo, 8, value_dtype=np.float64,
-                      separate_diagonal=True)
-    assert len(ss.diag_args) == 2          # the diagonal really split
-    fn = sharded_stream_spmv_fn(ss)
-    got = np.asarray(fn(ss, x, y0), np.float64)
-    scale = max(np.max(np.abs(want)), 1.0)
-    assert np.max(np.abs(got - want)) / scale < 5e-5
-
-
-def test_sharded_stream_traceable(rng):
-    """The chained-protocol form: plan/value arrays ride as jit ARGUMENTS
-    (an enclosing jit must not embed them as compiled constants)."""
-    import jax
-    import jax.numpy as jnp
-    from ellspmv_tpu.models.generators import power_law
-    from ellspmv_tpu.ops.reference import coo_spmv_numpy
-    from ellspmv_tpu.parallel.stream import (shard_stream,
-                                             sharded_stream_spmv_fn)
-
-    coo = power_law(640, 4, seed=9)
-    ss = shard_stream(coo, 8, value_dtype=np.float64)
-    fn = sharded_stream_spmv_fn(ss)
-    operand, tfn = fn.traceable
-    x = rng.rand(coo.num_columns)
-    got = np.asarray(jax.jit(tfn)(operand, jnp.asarray(x)), np.float64)
-    want = coo_spmv_numpy(coo, x)
-    scale = max(np.max(np.abs(want)), 1.0)
-    assert np.max(np.abs(got - want)) / scale < 5e-5
-
-
 @pytest.mark.parametrize("fmt", ["ell", "csr"])
 def test_sharded_chained_protocol(rng, fmt):
     """VERDICT r2 item 1: `ellspmv --devices=N --protocol=chained` crashed
     with `ShardedMatrix ... not a valid JAX type` — the harness's chained
-    branch jitted the non-pytree matrix. The sharded fn now exposes the
-    same `.traceable = (operand, fn)` form as the sharded stream, so the
-    chained loop passes only arrays through jit (the reference's timed
+    branch jitted the non-pytree matrix. The sharded fn exposes a
+    `.traceable = (operand, fn)` form, so the chained loop passes only
+    arrays through jit (the reference's timed
     loop works under every partition flag, ellspmv.c:1821-1876)."""
-    from ellspmv_tpu.bench.harness import benchmark_spmv
-    from ellspmv_tpu.formats.csr import csr_from_coo
+    from ellspmv_jax.bench.harness import benchmark_spmv
+    from ellspmv_jax.formats.csr import csr_from_coo
 
     n = 96
     coo = random_coo(rng, n, n, 700, with_dups=True)
@@ -336,35 +126,4 @@ def test_sharded_chained_protocol(rng, fmt):
     assert res.best > 0 and res.span_iters >= 3
     lines = res.iteration_lines()
     assert len(lines) == 1 and "slope" in lines[0]
-    assert np.isfinite(np.asarray(res.y)).all()
-
-
-def test_sharded_pallas_chained_protocol(rng, monkeypatch):
-    """Chained protocol through the sharded Pallas kernel path
-    (interpret-mode on the CPU mesh — the flagship multi-chip path)."""
-    from ellspmv_tpu.bench.harness import benchmark_spmv
-    from ellspmv_tpu.models.generators import banded_random
-    from ellspmv_tpu.parallel.spmv import sharded_pallas_spmv_fn
-
-    monkeypatch.setenv("ELLSPMV_TPU_SHARDED_PALLAS", "1")
-    monkeypatch.setenv("ELLSPMV_TPU_PALLAS_INTERPRET", "1")
-    coo = banded_random(1024, 4, 64, seed=3)
-    mat = ell_from_coo(coo, sort_rows=True, value_dtype=np.float64)
-    sm = shard_matrix(mat, 4)
-    fn = sharded_pallas_spmv_fn(sm)
-    if fn is None:
-        pytest.skip("no pallas plan for this matrix")
-    assert hasattr(fn, "traceable")
-    import jax
-    import jax.numpy as jnp
-    operand, tfn = fn.traceable
-    x = rng.rand(coo.num_columns)
-    want = coo_spmv_numpy(coo, x)
-    got = np.asarray(jax.jit(tfn)(operand, jnp.asarray(x)))
-    scale = max(np.max(np.abs(want)), 1.0)
-    # interpret mode loses the dd error-free transforms to XLA rewrites
-    assert np.max(np.abs(got - want)) / scale < 1e-6
-    res = benchmark_spmv(fn, sm, x, repeat=2, warmup=1,
-                         protocol="chained", metrics_matrix=mat)
-    assert res.best > 0
     assert np.isfinite(np.asarray(res.y)).all()

@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from ellspmv_tpu.formats.ell import ell_from_coo
-from ellspmv_tpu.formats.sell import sell_from_coo, sell_spmv
-from ellspmv_tpu.models.generators import dense_rows, power_law
-from ellspmv_tpu.ops.reference import coo_spmv_numpy
+from ellspmv_jax.formats.ell import ell_from_coo
+from ellspmv_jax.formats.sell import sell_from_coo, sell_spmv
+from ellspmv_jax.models.generators import dense_rows, power_law
+from ellspmv_jax.ops.reference import coo_spmv_numpy
 from tests.conftest import assert_fp64_close, random_coo
 
 
@@ -32,8 +32,8 @@ def test_padding_win_vs_ell(rng):
 
 def test_tail_split(rng):
     coo = dense_rows(1024, 3, num_dense=2, dense_nnz=500, seed=3)
-    # default: long rows are SPLIT into sub-rows (no CSR tail, every
-    # bucket within the Pallas rowsize cap), and y is re-aggregated
+    # default: long rows are SPLIT into sub-rows (no CSR tail, no bucket
+    # wider than split_len), and y is re-aggregated
     sm = sell_from_coo(coo, slice_rows=128, tail_cap=8)
     assert sm.tail is None
     assert sm.extra_rows is not None and sm.num_sub_rows > sm.num_rows
@@ -79,35 +79,21 @@ def test_dtypes(rng, dtype):
         np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
 
 
-def test_csr_pallas_path(rng):
-    """CSR routed through the sliced-ELL repack (interpret mode on CPU)."""
-    from ellspmv_tpu.formats.csr import csr_from_coo
-    from ellspmv_tpu.ops.csr_pallas import csr_spmv_pallas
-    coo = random_coo(rng, 600, 600, 3000, with_dups=True)
-    csr = csr_from_coo(coo, separate_diagonal=True)
-    x = rng.randn(600)
-    y0 = rng.randn(600)
-    got = np.asarray(csr_spmv_pallas(csr, x, y0))
-    assert_fp64_close(got, coo_spmv_numpy(coo, x, y0))
-
-
-def test_traceable_sell(rng, monkeypatch):
-    monkeypatch.setenv("ELLSPMV_TPU_PALLAS_INTERPRET", "1")
-    from ellspmv_tpu.ops.dispatch import traceable_spmv
+def test_traceable_sell(rng):
+    import jax
+    from ellspmv_jax.ops import spmv
     coo = random_coo(rng, 512, 512, 2500, with_dups=True)
     sm = sell_from_coo(coo, slice_rows=128,
                        value_dtype=np.float64).device_put()
-    op, fn = traceable_spmv(sm)
     x = rng.randn(512)
-    import jax
-    got = np.asarray(jax.jit(lambda o, xv: fn(o, xv))(op, np.asarray(x)))
+    got = np.asarray(jax.jit(spmv)(sm, np.asarray(x)))
     assert_fp64_close(got, coo_spmv_numpy(coo, x))
 
 
 def test_length_sort_sell_sigma(rng):
     """SELL-sigma: length-sorted rows eliminate the CSR tail for skewed
     matrices while keeping results identical (natural row order)."""
-    from ellspmv_tpu.models.generators import power_law
+    from ellspmv_jax.models.generators import power_law
     coo = power_law(2000, 8, seed=6)
     plain = sell_from_coo(coo, slice_rows=128, tail_cap=16,
                           split_rows=False)
@@ -123,22 +109,14 @@ def test_length_sort_sell_sigma(rng):
                       coo_spmv_numpy(coo, x, y0))
 
 
-def test_length_sort_traceable(rng, monkeypatch):
-    monkeypatch.setenv("ELLSPMV_TPU_PALLAS_INTERPRET", "1")
+def test_length_sort_traceable(rng):
     import jax
-    from ellspmv_tpu.models.generators import power_law
-    from ellspmv_tpu.ops.dispatch import traceable_spmv
+    from ellspmv_jax.models.generators import power_law
+    from ellspmv_jax.ops import spmv
     coo = power_law(1000, 4, seed=7)
-    # small tail_cap: interpret-mode kernels fully unroll, so wide buckets
-    # make XLA:CPU compiles explode (hardware uses Mosaic, unaffected)
     sm = sell_from_coo(coo, slice_rows=128, tail_cap=32, length_sort=True,
                        value_dtype=np.float64).device_put()
-    op, fn = traceable_spmv(sm)
     x = rng.randn(1000)
-    got = np.asarray(jax.jit(lambda o, v: fn(o, v))(op, np.asarray(x)))
-    # f32-level tolerance: XLA:CPU fuses interpret-mode kernels into the
-    # outer jit and rewrites their double-double transforms (hardware
-    # Mosaic kernels are opaque; fp64 accuracy there is 1e-14, measured)
-    want = coo_spmv_numpy(coo, x)
-    scale = max(np.max(np.abs(want)), 1.0)
-    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4 * scale)
+    y0 = rng.randn(1000)
+    got = np.asarray(jax.jit(spmv)(sm, np.asarray(x), np.asarray(y0)))
+    assert_fp64_close(got, coo_spmv_numpy(coo, x, y0))
